@@ -1,7 +1,7 @@
-"""Stage attribution for the feedforward chain on TPU.
+"""Stage attribution for the feedforward chain on the accelerator.
 
 Variants build successive prefixes of the current demod_ff stage 1 + body
-(each its own ~8-10 min compile on this backend):
+(each its own compiled program):
   agc_z4   block AGC (RMS) + unnormalized z^4 CFO estimate
   rot      + rotator-recurrence derotation
   rrc      + RRC matched filter (fir_stream_pair)   [= stage 1]
@@ -66,7 +66,7 @@ def main():
         return st, mfr.sum() + mfi.sum()
 
     if variant == "full":
-        impl = lambda st, xr, xi: FF._demod_block_impl(st, xr, xi, False)
+        impl = lambda st, xr, xi: FF._demod_block_impl(st, xr, xi)
     else:
         impl = lambda st, xr, xi: prefix(st, xr, xi, variant)
 

@@ -1,9 +1,7 @@
-"""Round-3 TPU ablation: superblock device program + mixed-FEC cost.
+"""Ablation of the superblock device program and the FEC programs.
 
-VERDICT r2 items 1-2: the e2e superblock program ran ~44 ms/cycle where the
-equivalent-shape bench_wideband program ran ~5 ms/cycle, and the mixed-FEC
-program spent ~758 ms on a 131072-row padded bucket.  This script measures,
-on the real TPU at the production shape (C=256, t50=6400, K=16):
+Measures, on the accelerator at the production shape (C=256, t50=6400,
+K=16):
 
   sb_full   new time-major nibble-packed superblock, full output fetch
   sb_sum    same program but returning only a checksum (compute, no fetch)
@@ -13,8 +11,8 @@ on the real TPU at the production shape (C=256, t50=6400, K=16):
   fec_cch   split CCH program @ the receiver's steady-state bucket
   fec_bbk   split BBK (RM-only) program @ its bucket
 
-Each variant is ONE compiled program (~8-10 min first compile on this
-backend); timings use warm iterations with a forced scalar fetch.  Results
+Each variant is ONE compiled program; timings use warm iterations with a
+forced scalar fetch.  Results
 append to /tmp/ablate_superblock.jsonl and print as JSON lines.
 """
 
@@ -53,8 +51,6 @@ def main():
     L = C * CH.TAPS_PER_BRANCH
     wide_len = (t50 - 1) * hop + L
     n_chunks = DF.n_chunks_for(t36)
-    up = DF._resolve_pallas(DF.USE_PALLAS)
-    upmm = DF._resolve_pallas(DF.USE_PALLAS_MM)
     pad = CH.RS_TAPS_PER_PHASE - 1
 
     rng = np.random.default_rng(0)
@@ -86,7 +82,7 @@ def main():
     # ---- superblock variants ----------------------------------------------
     def sb_full():
         _, out, _, _ = _wideband_step_scan(state0, wr, wi, hist, hist, C,
-                                           t36, n_chunks, up, upmm, False, K)
+                                           t36, n_chunks, False, K)
         return out
 
     g_rows = 2 * n_chunks + -(-n_chunks // 4)   # pack_cycle_tc rows/cycle
@@ -98,7 +94,7 @@ def main():
     @jax.jit
     def _sb_sum(state, wr, wi, hr, hi):
         _, out, _, _ = _wideband_step_scan(state, wr, wi, hr, hi, C, t36,
-                                           n_chunks, up, upmm, False, K)
+                                           n_chunks, False, K)
         return jnp.sum(out, dtype=jnp.int32)
 
     timeit("sb_sum", lambda: _sb_sum(state0, wr, wi, hist, hist),
@@ -109,9 +105,8 @@ def main():
         def body(carry, xs):
             st, hr, hi = carry
             xr, xi = xs
-            rr, ri, hr, hi = CH._front_end_block(xr, xi, hr, hi, C, t36, up)
-            st, outs = DF._demod_block_impl(st, rr.T, ri.T, n_chunks, up,
-                                            upmm)
+            rr, ri, hr, hi = CH._front_end_block(xr, xi, hr, hi, C, t36)
+            st, outs = DF._demod_block_impl(st, rr.T, ri.T, n_chunks)
             return (st, hr, hi), jnp.sum(outs["dist"])
         (_, _, _), sums = jax.lax.scan(body, (state, hr, hi), (wr, wi))
         return sums.sum()

@@ -1,12 +1,9 @@
-"""Wideband-cascade component attribution on the real TPU.
+"""Wideband-cascade component attribution on the accelerator.
 
-The fused cascade (bench_wideband.py) reads ~197 wideband Msps while the
-demod alone reads 3550 narrowband Msps at C=2048 -- either the channelizer
-front-end dominates, or the demod is simply starved at C=256 (its
-sequential chunk chain amortizes over channel lanes).  This script times
-the pieces separately and a G-stacked variant (G independent 256-channel
-multiplexes channelized per stream, demodulated together at C=G*256) to
-attribute the gap.
+Times the pieces of the fused cascade (bench_wideband.py) separately --
+channelizer front end, resampler, demod -- and a G-stacked variant (G
+independent 256-channel multiplexes channelized per stream, demodulated
+together at C=G*256) to attribute where a cycle's time goes.
 
 Modes (argv[1]): chonly | full | stacked
   chonly:  channelize + resample only (checksum on resampled stream)
@@ -122,7 +119,7 @@ def main():
             yr, yi = CH._channelize_block(wr, wi, n_ch)
             rr, ri, hr, hi = CH._resample_stream_block(yr, yi, hr, hi, t36)
             dstate, outs = demod_mod._demod_block_impl(
-                dstate, rr, ri, n_chunks, True, True)
+                dstate, rr, ri, n_chunks)
             return (dstate, hr, hi), outs["dist"].sum()
         hist = jnp.zeros((n_ch, CH.RS_TAPS_PER_PHASE - 1), jnp.float32)
         carry0 = (demod_mod.demod_init(n_ch), hist, hist)
@@ -143,7 +140,7 @@ def main():
             rr, ri, hr, hi = CH._resample_stream_block_fm(yr, yi, hr, hi,
                                                           t36)
             dstate, outs = demod_mod._demod_block_impl(
-                dstate, rr.T, ri.T, n_chunks, True, True)
+                dstate, rr.T, ri.T, n_chunks)
             return (dstate, hr, hi), outs["dist"].sum()
         hist = jnp.zeros((CH.RS_TAPS_PER_PHASE - 1, G * n_ch), jnp.float32)
         carry0 = (demod_mod.demod_init(G * n_ch), hist, hist)
@@ -160,7 +157,7 @@ def main():
             yi = yi.reshape(G * n_ch, t50)
             rr, ri, hr, hi = CH._resample_stream_block(yr, yi, hr, hi, t36)
             dstate, outs = demod_mod._demod_block_impl(
-                dstate, rr, ri, n_chunks, True, True)
+                dstate, rr, ri, n_chunks)
             return (dstate, hr, hi), outs["dist"].sum()
         hist = jnp.zeros((G * n_ch, CH.RS_TAPS_PER_PHASE - 1), jnp.float32)
         carry0 = (demod_mod.demod_init(G * n_ch), hist, hist)

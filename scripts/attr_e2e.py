@@ -1,9 +1,9 @@
-"""Per-stage attribution of the resident e2e superblock cycle (round 3).
+"""Per-stage attribution of the resident e2e superblock cycle.
 
 Replays the exact production per-superblock flow of
 TetraReceiver.process_wideband_staged + FleetEngine.process_packed2 with a
-timer around each stage, so BENCH_DETAIL's attribution table is measured,
-not estimated.  Run alone on the TPU host.
+timer around each stage (dispatch, fetch, fleet feed, FEC, dispatch).  Run
+alone on the accelerator host: one process per card.
 """
 
 import json
@@ -62,7 +62,7 @@ def main():
         t0 = time.perf_counter()
         (rx.state, fused, wb["hist_r"], wb["hist_i"]) = _wideband_step_scan(
             rx.state, wr, wi, wb["hist_r"], wb["hist_i"], channels,
-            wb["t36"], wb["n_chunks"], True, True, False, K)
+            wb["t36"], wb["n_chunks"], False, K)
         t0 = lap("sb_dispatch", t0)
         arr = np.asarray(fused)
         t0 = lap("sb_fetch", t0)

@@ -32,9 +32,9 @@ def main():
     def body(state, xs):
         xr, xi = xs
         state, outs = demod_mod._demod_block_impl(
-            state, xr, xi, n_chunks, True, True)
-        # scalar checksum INSIDE the jit (remote compiles are minutes;
-        # out-of-jit reductions would compile a second program)
+            state, xr, xi, n_chunks)
+        # scalar checksum INSIDE the jit (an out-of-jit reduction would
+        # compile a second program)
         return state, outs["dist"].sum()
 
     def step(state, xr_k, xi_k):

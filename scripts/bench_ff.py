@@ -1,5 +1,5 @@
-"""TPU throughput of the feedforward block receiver (rx/demod_ff) vs the
-chunked dual-Pallas chain (bench.py's headline).
+"""Accelerator throughput of the feedforward block receiver (rx/demod_ff),
+to compare with the chunked chain of bench.py's demod line.
 
 Same methodology as bench.py: locked TETRA downlink input, (C, T) blocks,
 k blocks scanned per dispatch, checksum folded into the jitted program,
@@ -28,7 +28,7 @@ def main():
     k = int(sys.argv[3]) if len(sys.argv) > 3 else 32
 
     def body(state, xs):
-        state, outs = FF._demod_block_impl(state, xs[0], xs[1], False)
+        state, outs = FF._demod_block_impl(state, xs[0], xs[1])
         return state, outs["dist"].sum()
 
     @jax.jit

@@ -1,19 +1,24 @@
-"""Wideband on-TPU probe: channelizer -> resampler -> demod in one program.
+"""Wideband device probe: channelizer -> resampler -> demod in one program.
 
 Measures sustained wideband IQ throughput (raw antenna samples/s) for the
-full front-end + demod cascade on one chip: polyphase channelize n_ch x
-25 kHz (gather-free slice/matmul framing), 18/25 banded-matmul resample,
-chunked demod.  Same bulk-scan dispatch pattern as bench.py.  Prints one
-JSON line; falls back through configs on backend shape rejections.
+full front-end + demod cascade on one GPU: polyphase channelize n_ch x
+25 kHz (slice/matmul framing), 18/25 banded-matmul resample, chunked demod.
+Same bulk-scan dispatch pattern as bench.py.  Prints one JSON line.
+
+Usage: python scripts/bench_wideband.py [n_ch t50 k G]
 """
 
 import json
+import sys
 import time
 
 import numpy as np
 
 
 def main():
+    from tetra_tpu import compile_cache, device_info
+    compile_cache.enable()
+    devs, card = device_info.require_gpu()
     import jax
     import jax.numpy as jnp
 
@@ -22,10 +27,8 @@ def main():
 
     def run_config(n_ch, t50, k, G=1):
         """G: independent n_ch-channel multiplexes stacked per scan block
-        (channelized per stream, demodulated together at C=G*n_ch).  The
-        backend's ~27 ms fixed dispatch overhead dominates small programs
-        (scripts/ablate_wideband.py attribution), so throughput is mostly
-        a question of how many blocks one dispatch amortizes: k*G."""
+        (channelized per stream, demodulated together at C=G*n_ch): a
+        fixed per-dispatch overhead amortizes over k*G blocks."""
         hop = n_ch // 2
         L = n_ch * CH.TAPS_PER_BRANCH
         t36 = t50 * 18 // 25
@@ -33,12 +36,10 @@ def main():
         wide_len = (t50 - 1) * hop + L
         advance = t50 * hop
         n_chunks = demod_mod.n_chunks_for(t36)
-        # one-kernel front-end per mux (fold+DFT+sign flip+resample fused,
-        # ops/chan_pallas.fold_dft_resample via CH._front_end_block), then
-        # the demod at C = G*n_ch
+        # front-end per mux (CH._front_end_block), then the demod at
+        # C = G*n_ch
         import functools
-        fe = functools.partial(CH._front_end_block, n_ch=n_ch, t36=t36,
-                               use_pallas=CH._resolve_pallas(CH.USE_PALLAS))
+        fe = functools.partial(CH._front_end_block, n_ch=n_ch, t36=t36)
         fe_g = jax.vmap(lambda r, i, hr, hi: fe(r, i, hr, hi))
 
         def body(carry, xs):
@@ -48,7 +49,7 @@ def main():
             rr = jnp.moveaxis(rr, 0, 1).reshape(t36, G * n_ch)
             ri = jnp.moveaxis(ri, 0, 1).reshape(t36, G * n_ch)
             dstate, outs = demod_mod._demod_block_impl(
-                dstate, rr.T, ri.T, n_chunks, True, True)
+                dstate, rr.T, ri.T, n_chunks)
             return (dstate, hr, hi), outs["dist"].sum()
 
         def step(carry, wr_k, wi_k):
@@ -80,28 +81,17 @@ def main():
         dt = time.perf_counter() - t0
         return G * k * advance * iters / dt / 1e6
 
-    result = None
     # t50 must map to a K_SAMP-multiple t36 (t50 * 18/25 % K_SAMP == 0)
-    for n_ch, t50, k, G in ((256, 6400, 64, 4), (256, 6400, 64, 1),
-                            (256, 6400, 8, 1), (256, 6400, 1, 1),
-                            (128, 6400, 8, 1), (64, 6400, 1, 1)):
-        try:
-            msps = run_config(n_ch, t50, k, G)
-            result = dict(n_ch=n_ch, t50=t50, k=k, G=G, msps=round(msps, 3))
-            break
-        except Exception as e:
-            print(f"# config ({n_ch},{t50},{k},{G}) failed: "
-                  f"{type(e).__name__}: {str(e)[:160]}")
-            continue
+    n_ch, t50, k, G = (int(a) for a in (sys.argv[1:] or [256, 6400, 8, 1]))
+    msps = run_config(n_ch, t50, k, G)
     # wideband Msamples/s at n_ch*25 kHz == n_ch/40 real-time multiplexes
     print(json.dumps({
         "metric": "wideband_frontend_throughput",
-        "value": result["msps"] if result else 0.0,
-        "unit": "wideband Msamples/s/chip",
-        "config": result,
-        "realtime_multiplexes": (round(result["msps"] * 1e6
-                                       / (result["n_ch"] * 25_000), 1)
-                                 if result else 0.0),  # of n_ch channels each
+        "value": msps,
+        "unit": "wideband Msamples/s",
+        "config": dict(n_ch=n_ch, t50=t50, k=k, G=G),
+        "realtime_multiplexes": msps * 1e6 / (n_ch * 25_000) * G,
+        "device": device_info.describe(devs), "card": card,
     }))
 
 

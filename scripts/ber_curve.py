@@ -10,9 +10,8 @@ match every received burst to its TX slot by TDMA time, and report
                    unconverged-loop bit errors by design)
   * CRC-ok rate  - decoded control blocks passing CRC over the same window
 
-Usage: PYTHONPATH=/root/repo JAX_PLATFORMS=cpu python scripts/ber_curve.py
+Usage: JAX_PLATFORMS=cpu python scripts/ber_curve.py
 (CPU is fine: this is a quality sweep, not a throughput bench).
-Results recorded in BENCH_DETAIL.md.
 """
 
 import sys

@@ -7,8 +7,8 @@ PDU dispatch).  Reports wall time per stage and the aggregate real-time
 channel capacity of this host; optional cProfile top list.
 
 Usage: python scripts/profile_host.py [n_ch] [n_slots] [--cprofile]
-Runs on CPU jax (forced in-process) -- device FEC time here is CPU-XLA,
-not TPU; rx/hostpool + the TPU carry that in production.
+Runs on CPU jax (forced in-process) unless --device -- device FEC time
+here is CPU-XLA; rx/hostpool + the accelerator carry that in production.
 """
 
 import sys
@@ -23,7 +23,7 @@ def main():
     use_cprofile = "--cprofile" in sys.argv
 
     import jax
-    if "--tpu" not in sys.argv:
+    if "--device" not in sys.argv:
         jax.config.update("jax_platforms", "cpu")
 
     from tetra_tpu import params as P

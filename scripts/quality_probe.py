@@ -1,7 +1,7 @@
 """Demod-quality probe: mean |phase error| of the production chunked chain.
 
-Reproduces the BENCH_DETAIL.md quality table conditions on CPU so loop /
-chunk-size changes can be compared quantitatively:
+Runs a fixed table of impairment conditions on CPU so loop / chunk-size
+changes can be compared quantitatively:
   clean         sample-aligned TX
   mu=0.5        half-sample timing offset (4 sps modulate, odd decimation)
   100ppm        sample-clock offset via polyphase resampling

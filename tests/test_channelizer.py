@@ -269,3 +269,58 @@ def test_fused_wideband_receiver_decodes_multicell():
         assert (d.mcc, d.mnc, d.cc) == (cfg.mcc, cfg.mnc, cfg.cc), k
         ok, fail = rx.crc_counts(k)
         assert ok > 100, (k, ok, fail)
+
+
+def _wideband_stream(n_ch, t50, n_blk, seed):
+    hop = n_ch // 2
+    wide_len = (t50 - 1) * hop + n_ch * CH.TAPS_PER_BRANCH
+    n = t50 * hop * (n_blk - 1) + wide_len
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return x.astype(np.complex64), wide_len, t50 * hop
+
+
+@pytest.mark.parametrize("n_ch,t50", [(16, 800), (16, 775), (32, 1600)])
+def test_channelizer_matches_float64_filterbank(n_ch, t50):
+    """The slice+matmul channelizer == the textbook float64 filterbank
+    (windowed frames, branch fold, FFT, hop-phase sign)."""
+    from tetra_tpu.parallel import channelizer_ref
+    x, wide_len, _ = _wideband_stream(n_ch, t50, 1, seed=n_ch + t50)
+    yr, yi = CH._channelize_block(jnp.asarray(x.real.copy()),
+                                  jnp.asarray(x.imag.copy()), n_ch)
+    got = (np.asarray(yr) + 1j * np.asarray(yi)).T          # (t50, n_ch)
+    want = channelizer_ref.filterbank(x.astype(np.complex128), n_ch, t50)
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel < 1e-6, rel
+
+
+@pytest.mark.parametrize("n_ch,t50", [(16, 1600), (32, 800)])
+def test_fused_front_end_matches_unfused_composition(n_ch, t50):
+    """_front_end_block (frame-major channelize + superblock resampler) over
+    streamed blocks == the channel-major channelizer + streaming resampler
+    composition, and both == the float64 reference front end."""
+    from tetra_tpu.parallel import channelizer_ref
+    n_blk = 2
+    t36 = t50 * 18 // 25
+    x, wide_len, advance = _wideband_stream(n_ch, t50, n_blk, seed=7)
+    pad = CH.RS_TAPS_PER_PHASE - 1
+    hf_r = hf_i = jnp.zeros((pad, n_ch), jnp.float32)
+    hu_r = hu_i = jnp.zeros((n_ch, pad), jnp.float32)
+    fused, unfused = [], []
+    for b in range(n_blk):
+        w = x[b * advance: b * advance + wide_len]
+        xr, xi = jnp.asarray(w.real.copy()), jnp.asarray(w.imag.copy())
+        rr, ri, hf_r, hf_i = CH._front_end_block(xr, xi, hf_r, hf_i,
+                                                 n_ch, t36)
+        fused.append(np.asarray(rr) + 1j * np.asarray(ri))
+        yr, yi = CH._channelize_block(xr, xi, n_ch)
+        ur, ui, hu_r, hu_i = CH._resample_stream_block(yr, yi, hu_r, hu_i,
+                                                       t36)
+        unfused.append((np.asarray(ur) + 1j * np.asarray(ui)).T)
+    fused = np.concatenate(fused)
+    unfused = np.concatenate(unfused)
+    np.testing.assert_allclose(fused, unfused, rtol=0, atol=2e-5)
+    want = channelizer_ref.front_end(x.astype(np.complex128), n_ch,
+                                     n_blk * t50, n_blk * t36)
+    rel = np.linalg.norm(fused - want) / np.linalg.norm(want)
+    assert rel < 1e-5, rel

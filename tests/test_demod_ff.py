@@ -76,7 +76,7 @@ def test_multiblock_streaming_exact():
 def test_quality_under_impairments():
     """Half-sample timing offset and 100 ppm clock offset: the feedforward
     estimates track with a lower jitter floor than the feedback chain's
-    measured table (BENCH_DETAIL.md)."""
+    (scripts/quality_probe.py conditions)."""
     from scipy.signal import resample_poly
     bits = RNG.integers(0, 2, (1, 80_000)).astype(np.uint8)
     iq4 = np.asarray(modulate(jnp.asarray(bits), sps=4))

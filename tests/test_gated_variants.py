@@ -1,5 +1,5 @@
-"""Gated A/B variants must keep their documented properties (VERDICT r4
-weak #4): PAIR_STAGE1, TETRA_AGC_RMS and FLL_DECIM=1 are kept in-tree as
+"""Gated A/B variants must keep their documented properties: PAIR_STAGE1,
+TETRA_AGC_RMS and FLL_DECIM=1 are kept in-tree as
 recorded negatives / A/B levers, so a refactor that silently breaks a
 non-default path must fail CI, not the next measurement session.
 
@@ -71,9 +71,9 @@ def _operating_point_iq(n_bits=61440):
 
 
 def test_pair_stage1_passes_operating_point():
-    """PAIR_STAGE1=True (stage-1 compute pairing, a recorded TPU perf
-    negative): the quality gates it passed when measured (r4) must keep
-    passing -- 600 Hz pull-in at 20 dB with near-zero BER."""
+    """PAIR_STAGE1=True (stage-1 compute pairing, off by default): the
+    quality gates it passed when measured must keep passing -- 600 Hz
+    pull-in at 20 dB with near-zero BER."""
     bits, iq = _operating_point_iq()
     with _variant(PAIR_STAGE1=True):
         rx, _, state = _run(iq)

@@ -210,4 +210,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from .. import compile_cache
+    compile_cache.enable()
     sys.exit(main())

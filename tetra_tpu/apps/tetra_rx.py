@@ -323,12 +323,6 @@ def main(argv=None):
                          "sync + MAC + display) in C++ around batched "
                          "device FEC -- the production path at scale "
                          "(implies no event log / no --keystore)")
-    ap.add_argument("--link-profile", choices=("tunnel", "pcie"),
-                    default="tunnel",
-                    help="device-link deployment profile: pcie enables the "
-                         "mechanisms that lose on serialized tunnels "
-                         "(wb_pipeline double-buffering, chunked typed-FEC "
-                         "upload/fetch overlap, all-cores fleet workers)")
     ap.add_argument("--wb-k", type=int, default=1, metavar="K",
                     help="with --fleet --wideband: superblock depth "
                          "(demod cycles per device dispatch+fetch; "
@@ -501,8 +495,7 @@ def main(argv=None):
                         "Python MAC path)"
                     rx = TetraReceiver(C, voice_cb=voice, mode=args.demod,
                                        events=False, wideband=wb,
-                                       fleet=True, wb_k=args.wb_k,
-                                       link_profile=args.link_profile)
+                                       fleet=True, wb_k=args.wb_k)
                 else:
                     rx = TetraReceiver(C, voice_cb=voice, mode=args.demod,
                                        events=args.verbose, wideband=wb)
@@ -598,4 +591,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from .. import compile_cache
+    compile_cache.enable()
     sys.exit(main())

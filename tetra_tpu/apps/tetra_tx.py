@@ -180,4 +180,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from .. import compile_cache
+    compile_cache.enable()
     sys.exit(main())

@@ -3,8 +3,9 @@
 Stateless convolution stages of the demod chain (RRC matched filter, and the
 reference-parity per-sample band-edge filters when run outside the FLL loop)
 are expressed as 'valid' convolutions over a block with an (M-1)-sample carry,
-i.e. overlap-save streaming.  Complex data is decomposed into real convs so
-XLA lowers them onto the TPU conv/matmul units.
+i.e. overlap-save streaming.  Complex data is decomposed into real convs.
+Convolutions and matmuls run at Precision.HIGHEST: f32 ones may otherwise
+run in TF32 on the GPU, and the CPU tests check f32 results.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ def _conv_valid_real(x: jnp.ndarray, h: jnp.ndarray) -> jnp.ndarray:
     out = lax.conv_general_dilated(
         lhs, rhs, window_strides=(1,), padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
+        precision=lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32)
     return out[:, 0, :]
 
@@ -71,10 +73,8 @@ def make_fir_tail(channels: int, taps: int, dtype=jnp.complex64) -> jnp.ndarray:
 
 def fir_stream_pair(xr: jnp.ndarray, xi: jnp.ndarray, h: jnp.ndarray,
                     tail_re: jnp.ndarray, tail_im: jnp.ndarray):
-    """Streaming real-tap FIR on an explicit (re, im) float pair.
-
-    TPU-safe variant of fir_stream: this environment's TPU backend has no
-    complex64 support, so IQ streams are carried as two float32 planes.
+    """Streaming real-tap FIR on an explicit (re, im) float pair (the
+    device path carries IQ streams as two float32 planes).
     Returns (yr, yi, new_tail_re, new_tail_im).
     """
     M = h.shape[0]
@@ -103,11 +103,10 @@ def fir_stream_pair_mm(xr: jnp.ndarray, xi: jnp.ndarray, h: jnp.ndarray,
                        tail_re: jnp.ndarray, tail_im: jnp.ndarray):
     """fir_stream_pair expressed as chunked banded MATMULS.
 
-    The lax.conv formulation carries a single feature channel, which this
-    TPU backend lowers poorly (measured 59 ms of a 215 ms feedforward-chain
-    dispatch); reshaping time into 64-sample chunks and multiplying
-    (C * n, 128) @ (128, 64) puts the same arithmetic on the MXU with
-    contiguous reshapes only.  Requires M - 1 == 64 and T % 64 == 0;
+    The lax.conv formulation carries a single feature channel; reshaping
+    time into 64-sample chunks and multiplying (C * n, 128) @ (128, 64)
+    runs the same arithmetic as one matmul with contiguous reshapes only.
+    Requires M - 1 == 64 and T % 64 == 0;
     bit-identical windows to fir_stream_pair (same overlap-save layout).
     """
     M = h.shape[0]
@@ -122,7 +121,7 @@ def fir_stream_pair_mm(xr: jnp.ndarray, xi: jnp.ndarray, h: jnp.ndarray,
     def run(ext):
         w = jnp.concatenate([ext[:, :T].reshape(C, n, 64),
                              ext[:, 64:].reshape(C, n, 64)], axis=2)
-        y = jnp.einsum("cnj,jk->cnk", w, H,
+        y = jnp.einsum("cnj,jk->cnk", w, H, precision=lax.Precision.HIGHEST,
                        preferred_element_type=jnp.float32)
         return y.reshape(C, T)
 

@@ -1,4 +1,4 @@
-"""Polyphase DFT-filterbank channelizer + rational resampler (JAX, TPU-first).
+"""Polyphase DFT-filterbank channelizer + rational resampler (JAX).
 
 Splits a wideband IQ capture into N x 25 kHz TETRA channels - the data
 parallel axis of the whole pipeline (SURVEY.md section 2.10; the reference
@@ -7,15 +7,15 @@ handles exactly one VFO channel, main.cpp:75).
 Design:
   * 2x-oversampled polyphase channelizer: input at fs = N*25 kHz, hop N/2
     samples per output -> each channel emits 50 kHz complex baseband.  The
-    DFT across branches runs as real matmuls against the DFT basis (MXU
-    friendly; the TPU backend here has no complex dtype).
+    DFT across branches runs as real matmuls against the DFT basis, on
+    (re, im) float32 pairs.
   * rational 18/25 polyphase resampler: 50 kHz -> 36 kHz so the demod chain
     sees its native 2 samples/symbol.
 
-Everything is stateless slices + matmuls over a block with small tail carries
-(gather-free: this backend's gathers run ~6 ns/element), so it composes with
-the sharded demod (channels axis) and the halo-exchange time sharding of
-mesh.py and keeps the wideband front-end on the MXU.
+Everything is stateless slices + matmuls over a block with small tail carries,
+so it composes with the sharded demod (channels axis) and the halo-exchange
+time sharding of mesh.py.  Every matmul runs at Precision.HIGHEST: f32 dots
+may otherwise run in TF32 on the GPU, and the CPU tests check f32 results.
 """
 
 from __future__ import annotations
@@ -61,20 +61,11 @@ def _dft_basis(n_ch: int) -> tuple[np.ndarray, np.ndarray]:
     return (W.real.astype(np.float32), W.imag.astype(np.float32))
 
 
-# Pallas kernel selection: None = auto (fused fold+DFT kernel on TPU
-# backends, XLA composition on CPU); set True/False to force.
-USE_PALLAS = None
+_HI = jax.lax.Precision.HIGHEST
 
 
-def _resolve_pallas(flag) -> bool:
-    if flag is not None:
-        return bool(flag)
-    return jax.default_backend() not in ("cpu",)
-
-
-@partial(jax.jit, static_argnames=("n_ch", "use_pallas", "frame_major"))
-def _channelize_block_impl(xr, xi, n_ch: int, use_pallas: bool = False,
-                           frame_major: bool = False):
+@partial(jax.jit, static_argnames=("n_ch", "frame_major"))
+def _channelize_block_impl(xr, xi, n_ch: int, frame_major: bool = False):
     """(T,) wideband float pair -> (n_ch, T//(n_ch//2)) channel float pairs.
 
     2x oversampled: hop = n_ch//2.  Input must be padded so that
@@ -84,12 +75,7 @@ def _channelize_block_impl(xr, xi, n_ch: int, use_pallas: bool = False,
     x[m*hop + j*n_ch + b] for branch b = d*hop + c (d in {0,1}) equals
     z[m + 2j + d, c] of the hop-reshaped input, so the polyphase fold is a
     sum of 2*TAPS_PER_BRANCH static slices of z weighted by the folded
-    prototype -- no gather (this backend gathers at ~6 ns/element;
-    slices/matmuls keep the wideband front-end on the TPU fast path).
-
-    use_pallas routes fold+DFT+signflip through the fused VMEM-resident
-    kernel (ops/chan_pallas.fold_dft); the XLA composition below is the
-    reference twin (interpret-mode equality in tests/test_pallas.py).
+    prototype.
     """
     hop = n_ch // 2
     L = n_ch * TAPS_PER_BRANCH
@@ -99,15 +85,6 @@ def _channelize_block_impl(xr, xi, n_ch: int, use_pallas: bool = False,
     n_z = T // hop
     zr = xr[:n_z * hop].reshape(n_z, hop)
     zi = xi[:n_z * hop].reshape(n_z, hop)
-    if use_pallas:
-        from ..ops.chan_pallas import _fold_weights, fold_dft
-        need = n_out + 2 * TAPS_PER_BRANCH - 1
-        F = jnp.asarray(_fold_weights(_prototype(n_ch), n_ch))
-        yr, yi = fold_dft(zr[:need], zi[:need], F,
-                          jnp.asarray(Wr.T), jnp.asarray(Wi.T), n_ch)
-        if frame_major:
-            return yr, yi
-        return jnp.swapaxes(yr, 0, 1), jnp.swapaxes(yi, 0, 1)
     h2 = _prototype(n_ch).reshape(TAPS_PER_BRANCH, 2, hop)  # [j, d, c]
     acc = [[jnp.zeros((n_out, hop), xr.dtype) for _ in range(2)]
            for _ in range(2)]  # [re/im][d]
@@ -120,8 +97,9 @@ def _channelize_block_impl(xr, xi, n_ch: int, use_pallas: bool = False,
     fr = jnp.concatenate(acc[0], axis=-1)
     fi = jnp.concatenate(acc[1], axis=-1)
     # DFT across branches: y[m, k] = sum_b f[m, b] * exp(+j 2 pi k b / N)
-    yr = fr @ Wr.T - fi @ Wi.T          # (n_out, n_ch)
-    yi = fr @ Wi.T + fi @ Wr.T
+    mm = partial(jnp.matmul, precision=_HI)
+    yr = mm(fr, Wr.T) - mm(fi, Wi.T)          # (n_out, n_ch)
+    yi = mm(fr, Wi.T) + mm(fi, Wr.T)
     # hop phase correction: branch m shifts by hop*m samples; channel k picks
     # up exp(-j 2 pi k hop m / N) = (-1)^(k m) for hop = N/2
     m = jnp.arange(n_out)
@@ -135,54 +113,23 @@ def _channelize_block_impl(xr, xi, n_ch: int, use_pallas: bool = False,
 
 
 def _channelize_block(xr, xi, n_ch: int):
-    return _channelize_block_impl(xr, xi, n_ch, _resolve_pallas(USE_PALLAS))
+    return _channelize_block_impl(xr, xi, n_ch)
 
 
-@partial(jax.jit, static_argnames=("n_ch", "t36", "use_pallas"))
-def _front_end_block(xr, xi, hr, hi, n_ch: int, t36: int,
-                     use_pallas: bool = False):
+@partial(jax.jit, static_argnames=("n_ch", "t36"))
+def _front_end_block(xr, xi, hr, hi, n_ch: int, t36: int):
     """Whole wideband front-end for one block: channelize + streaming 18/25
     resample, frame-major.  xr/xi: (wide_len,) wideband rows; hr/hi:
     (RS_TAPS_PER_PHASE-1, n_ch) stream history.  Returns (rr (t36, n_ch),
-    ri, hr2, hi2).
-
-    On the Pallas path the fold, DFT, sign flip AND the superblock
-    resample run as ONE kernel (ops/chan_pallas.fold_dft_resample) with
-    the 50 kHz stream never leaving VMEM; otherwise the XLA twins compose.
-    """
-    hop = n_ch // 2
-    L = n_ch * TAPS_PER_BRANCH
-    T = xr.shape[0]
-    n_out = (T - L) // hop + 1
-    q_tile = 800
-    if use_pallas and n_out % q_tile == 0 and t36 * 25 == n_out * 18:
-        from ..ops.chan_pallas import _fold_weights, fold_dft_resample
-        Wr, Wi = map(jnp.asarray, _dft_basis(n_ch))
-        n_z = T // hop
-        zr = xr[:n_z * hop].reshape(n_z, hop)
-        zi = xi[:n_z * hop].reshape(n_z, hop)
-        need = n_out + 2 * TAPS_PER_BRANCH - 1
-        F = jnp.asarray(_fold_weights(_prototype(n_ch), n_ch))
-        WS = jnp.asarray(_resamp_super_matrix(18, 25, q_tile // 25))
-        pad = RS_TAPS_PER_PHASE - 1
-        _, _, ZF = _resamp_matrix(18, 25)      # head = [ZF zeros | history]
-        zf = jnp.zeros((ZF,) + hr.shape[1:], hr.dtype)
-        hd_r = jnp.concatenate([zf, hr], axis=0)
-        hd_i = jnp.concatenate([zf, hi], axis=0)
-        rr, ri, tr, ti = fold_dft_resample(
-            zr[:need], zi[:need], F, jnp.asarray(Wr.T), jnp.asarray(Wi.T),
-            WS, hd_r, hd_i, n_ch, t36, q_tile=q_tile)
-        return rr, ri, tr[25 - pad:], ti[25 - pad:]
-    yr, yi = _channelize_block_impl(xr, xi, n_ch, use_pallas,
-                                    frame_major=True)
+    ri, hr2, hi2)."""
+    yr, yi = _channelize_block_impl(xr, xi, n_ch, frame_major=True)
     return _resample_stream_block_fm(yr, yi, hr, hi, t36)
 
 
 def _channelize_block_fm(xr, xi, n_ch: int):
     """Frame-major variant: returns (t50, n_ch) streams, skipping the final
     transpose so the frame-major resampler consumes them directly."""
-    return _channelize_block_impl(xr, xi, n_ch, _resolve_pallas(USE_PALLAS),
-                                  frame_major=True)
+    return _channelize_block_impl(xr, xi, n_ch, frame_major=True)
 
 
 def channelize(iq: np.ndarray, n_ch: int) -> np.ndarray:
@@ -232,9 +179,7 @@ def _resamp_matrix(L: int, M: int) -> tuple[np.ndarray, int, int]:
     and inputs into blocks of M, every output block q is a matmul of the B
     consecutive input blocks q..q+B-1 of the ZF-front-padded stream against
     one (B*M, L) matrix: y[q, p] = sum_j xpp[q*M + j] W[j, p] with
-    W[ZF + off_p + t, p] = flip(bank[p])[t].  One MXU matmul replaces the
-    previous (n_out, taps) gather (pathological on this backend).
-    Returns (W, B, ZF)."""
+    W[ZF + off_p + t, p] = flip(bank[p])[t].  Returns (W, B, ZF)."""
     bank = _resamp_bank(L, M)
     pad = RS_TAPS_PER_PHASE - 1
     B = 1 + -(-pad // M)          # input blocks per window
@@ -255,8 +200,8 @@ def _resample_matmul(xpp_r, xpp_i, Wm, n_q: int, B: int, M: int, L: int):
     zi = xpp_i.reshape(shp + (n_q + B - 1, M))
     zbr = jnp.concatenate([zr[..., k:k + n_q, :] for k in range(B)], axis=-1)
     zbi = jnp.concatenate([zi[..., k:k + n_q, :] for k in range(B)], axis=-1)
-    yr = (zbr @ Wm).reshape(shp + (n_q * L,))
-    yi = (zbi @ Wm).reshape(shp + (n_q * L,))
+    yr = jnp.matmul(zbr, Wm, precision=_HI).reshape(shp + (n_q * L,))
+    yi = jnp.matmul(zbi, Wm, precision=_HI).reshape(shp + (n_q * L,))
     return yr, yi
 
 
@@ -305,10 +250,8 @@ def resample_36_to_50(iq: np.ndarray) -> np.ndarray:
 def _resamp_super_matrix(L: int, M: int, S: int) -> np.ndarray:
     """Superblock form of _resamp_matrix for frame-major streams: S output
     blocks as one (S*L, S*M + (B-1)*M) banded matrix, so the resampler is a
-    left-matmul with channels on the lane axis -- full MXU occupancy where
-    the channel-major form degenerates to a (.., B*M) @ (B*M, L) product
-    with N=18 lanes (~5% utilization; measured as the front-end's largest
-    remaining cost after the fold+DFT kernel)."""
+    left-matmul with channels on the wide axis, where the channel-major
+    form degenerates to a (.., B*M) @ (B*M, L) product with N=18 columns."""
     W, B, _ = _resamp_matrix(L, M)
     WS = np.zeros((S * L, (S + B - 1) * M), np.float32)
     for u in range(S):
@@ -343,7 +286,7 @@ def _resample_stream_block_fm(xr, xi, hr, hi, t_out: int, L: int = 18,
         base = blocks[:n_super * S].reshape(n_super, S * M, C)
         extra = blocks[S::S].reshape(n_super, (B - 1) * M, C)
         win = jnp.concatenate([base, extra], axis=1)  # (n_super, (S+1)M, C)
-        y = jnp.einsum("ow,gwc->goc", WS, win,
+        y = jnp.einsum("ow,gwc->goc", WS, win, precision=_HI,
                        preferred_element_type=jnp.float32)
         return y.reshape(t_out, C)
 

@@ -6,8 +6,8 @@ The scale-out axes (SURVEY.md section 2.10):
     channel axis across the mesh with NO communication.
   * "t" (sequence parallel): within-channel time sharding for the stateless
     convolution stages, using overlap-save with halo exchange via
-    `jax.lax.ppermute` over ICI (the reference's only "communication
-    backend" is in-process stream buffers; this is the TPU-native analog).
+    `jax.lax.ppermute` (the reference's only "communication backend" is
+    in-process stream buffers; this is the multi-device analog).
 
 The per-sample feedback loops carry state along time and therefore stay
 sequential per channel; scaling comes from the channel axis, exactly as the
@@ -43,24 +43,17 @@ def sharded_demod_step(mesh: Mesh, block_len: int):
     between blocks.
     """
     n_chunks = demod_mod.n_chunks_for(block_len)
-    use_pallas = demod_mod._resolve_pallas(demod_mod.USE_PALLAS)
-    use_pallas_mm = demod_mod._resolve_pallas(demod_mod.USE_PALLAS_MM)
 
     def step(state, xr, xi):
-        return demod_mod._demod_block_impl(state, xr, xi, n_chunks,
-                                           use_pallas, use_pallas_mm)
+        return demod_mod._demod_block_impl(state, xr, xi, n_chunks)
 
     cspec = Pspec("ch")
     state_spec = jax.tree.map(lambda _: cspec, demod_mod.demod_init(1))
     out_spec = dict(sym_re=cspec, sym_im=cspec, dibits=cspec, valid=cspec,
                     dist=cspec, fll_freq=cspec, agc_gain=cspec)
-    # check_vma=False: pallas_call out_shapes carry no varying-mesh-axes
-    # annotation, so the vma check rejects the fused-kernel path inside
-    # shard_map (the kernels are pure per-shard compute; nothing varies)
     shard = jax.shard_map(step, mesh=mesh,
                           in_specs=(state_spec, cspec, cspec),
-                          out_specs=(state_spec, out_spec),
-                          check_vma=False)
+                          out_specs=(state_spec, out_spec))
     return jax.jit(shard)
 
 
@@ -78,7 +71,7 @@ def sharded_demod_init(mesh: Mesh, channels: int) -> demod_mod.DemodState:
 def halo_fir(mesh: Mesh, h: np.ndarray, axis: str = "t"):
     """Build a time-sharded streaming FIR: each device holds a contiguous
     time shard of every channel; the (M-1)-sample halo travels left->right
-    between neighbor shards over ICI via `lax.ppermute`.
+    between neighbor shards via `lax.ppermute`.
 
     Returns a jitted fn: x (C, T_total) sharded on time -> y same sharding,
     where y matches the unsharded causal convolution (zero history at t=0).
@@ -111,8 +104,8 @@ def halo_fir(mesh: Mesh, h: np.ndarray, axis: str = "t"):
 
 
 def make_mesh_2d(n_hosts: int, n_chips: int) -> Mesh:
-    """(host, chip) mesh: the host axis maps to DCN-connected workers, the
-    chip axis to each worker's ICI-connected chips."""
+    """(host, chip) mesh: the host axis maps to network-connected workers,
+    the chip axis to each worker's local devices."""
     devs = np.array(jax.devices()[: n_hosts * n_chips])
     return Mesh(devs.reshape(n_hosts, n_chips), ("host", "chip"))
 
@@ -157,8 +150,6 @@ def sharded_wideband_demod_step(mesh: Mesh, n_ch: int, t50_new: int = 6400):
     wide_len = (t50_new - 1) * hop + L
     advance = t50_new * hop
     n_chunks = demod_mod.n_chunks_for(t36)
-    use_pallas = demod_mod._resolve_pallas(demod_mod.USE_PALLAS)
-    use_pallas_mm = demod_mod._resolve_pallas(demod_mod.USE_PALLAS_MM)
 
     def step(state, wr, wi):
         dstate, hr, hi = state
@@ -167,8 +158,7 @@ def sharded_wideband_demod_step(mesh: Mesh, n_ch: int, t50_new: int = 6400):
         yr = jax.lax.dynamic_slice_in_dim(yr, c0, ch_per_chip, 0)
         yi = jax.lax.dynamic_slice_in_dim(yi, c0, ch_per_chip, 0)
         rr, ri, hr, hi = CH._resample_stream_block(yr, yi, hr, hi, t36)
-        dstate, outs = demod_mod._demod_block_impl(dstate, rr, ri, n_chunks,
-                                                    use_pallas, use_pallas_mm)
+        dstate, outs = demod_mod._demod_block_impl(dstate, rr, ri, n_chunks)
         nv = jnp.sum(outs["valid"]).astype(jnp.float32)
         ds = jnp.sum(jnp.where(outs["valid"], outs["dist"], 0.0))
         tot = jax.lax.psum(jnp.stack([ds, nv]), ("host", "chip"))
@@ -183,14 +173,13 @@ def sharded_wideband_demod_step(mesh: Mesh, n_ch: int, t50_new: int = 6400):
                     fleet_dist=Pspec())
     shard = jax.shard_map(step, mesh=mesh,
                           in_specs=(state_spec, Pspec("host"), Pspec("host")),
-                          out_specs=(state_spec, out_spec),
-                          check_vma=False)  # see sharded_demod_step
+                          out_specs=(state_spec, out_spec))
     return jax.jit(shard), wide_len, advance
 
 
 def sharded_wideband_superblock_step(mesh: Mesh, n_ch: int,
                                      t50_new: int = 6400, kw: int = 2):
-    """The PRODUCTION back half under sharding (VERDICT r2 item 4): the
+    """The PRODUCTION back half under sharding: the
     K-cycle superblock program — channelize -> 18/25 resample -> chunked
     demod -> time-major 2-bit+counts packing, the exact semantics of
     rx/receiver._wideband_step_scan — on the 2-D (host, chip) mesh.  Each
@@ -221,8 +210,6 @@ def sharded_wideband_superblock_step(mesh: Mesh, n_ch: int,
     wide_len = (t50_new - 1) * hop + L
     advance = t50_new * hop
     n_chunks = demod_mod.n_chunks_for(t36)
-    use_pallas = demod_mod._resolve_pallas(demod_mod.USE_PALLAS)
-    use_pallas_mm = demod_mod._resolve_pallas(demod_mod.USE_PALLAS_MM)
 
     def step(state, wrk, wik):
         dstate0, hr0, hi0 = state
@@ -236,8 +223,7 @@ def sharded_wideband_superblock_step(mesh: Mesh, n_ch: int,
             yi = jax.lax.dynamic_slice_in_dim(yi, c0, ch_per_chip, 0)
             rr, ri, hr, hi = CH._resample_stream_block(yr, yi, hr, hi, t36)
             dstate, outs = demod_mod._demod_block_impl(
-                dstate, rr, ri, n_chunks, use_pallas, use_pallas_mm,
-                tc_out=True)
+                dstate, rr, ri, n_chunks, tc_out=True)
             # packing bit-identical to _wideband_step_scan (shared helper)
             from ..rx.receiver import pack_cycle_tc
             packed, vinc, dinc = pack_cycle_tc(
@@ -264,12 +250,12 @@ def sharded_wideband_superblock_step(mesh: Mesh, n_ch: int,
         step, mesh=mesh,
         in_specs=(state_spec, Pspec("host"), Pspec("host")),
         out_specs=(state_spec, Pspec(None, ("host", "chip")), Pspec()),
-        check_vma=False)  # see sharded_demod_step
+        check_vma=False)  # see sharded_fec_decode
     return jax.jit(shard), wide_len, advance
 
 
 def sharded_fec_decode(mesh: Mesh, axis: str = "ch"):
-    """Row-sharded mixed-FEC decode (VERDICT r2 item 4): each device runs
+    """Row-sharded mixed-FEC decode: each device runs
     the SAME packed-transfer mixed program the single-chip fleet path runs
     (rx/fec._decode_mixed_packed_jit) on its shard of the type-5 rows —
     FEC rows are embarrassingly parallel, so the only collective is a
@@ -288,6 +274,11 @@ def sharded_fec_decode(mesh: Mesh, axis: str = "ch"):
     shard = jax.shard_map(local, mesh=mesh,
                           in_specs=(rspec, Pspec(), rspec, rspec),
                           out_specs=(rspec, Pspec()),
+                          # the per-shard bodies are the single-device
+                          # programs, whose lax.scan carries start from
+                          # replicated constants (accumulators, Viterbi start
+                          # metrics); the varying-axes check would demand
+                          # pcasts inside that shared code
                           check_vma=False)
     return jax.jit(shard)
 

@@ -10,14 +10,14 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 
 import numpy as np
 
+from .. import native_build
+
 _DIR = os.path.join(os.path.dirname(__file__), "native")
 _SRC = os.path.join(_DIR, "iq_stream.cpp")
-_SO = os.path.join(_DIR, "libtetra_iqstream.so")
 
 _lib = None
 _lock = threading.Lock()
@@ -28,11 +28,8 @@ def _load():
     with _lock:
         if _lib is not None:
             return _lib
-        if (not os.path.exists(_SO)
-                or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-            subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-                            "-o", _SO, _SRC, "-lpthread"], check=True)
-        lib = ctypes.CDLL(_SO)
+        lib = ctypes.CDLL(native_build.build(
+            "tetra_iqstream", _SRC, flags=("-O2", "-std=c++17", "-pthread")))
         lib.iqstream_create.restype = ctypes.c_void_p
         lib.iqstream_create.argtypes = [ctypes.c_uint64]
         lib.iqstream_feed_file.argtypes = [ctypes.c_void_p, ctypes.c_char_p,

@@ -3,8 +3,7 @@
 The chunked production chain (rx/demod_fast.py) restructures the reference's
 per-sample loops (complex_fd.cpp:89-151, pi4dqpsk_costas.cpp:5-21) as
 chunk-rate feedback -- still a SEQUENTIAL chain of ~72 small steps per block,
-which the roofline analysis (BENCH_DETAIL.md) identifies as the throughput
-bound: the MXU idles while the grid serializes.
+which bounds throughput while the arithmetic units idle.
 
 This module removes the feedback entirely for the bulk/offline path, the
 classic feedforward block-receiver design and the natural shape for a vector
@@ -47,7 +46,6 @@ Like demod_fast, everything on device is explicit (re, im) float32.
 
 from __future__ import annotations
 
-from functools import partial
 from typing import NamedTuple
 
 import jax
@@ -159,16 +157,15 @@ def _wrap(x, period):
     return x - period * jnp.floor(x / period + 0.5)
 
 
-@partial(jax.jit, static_argnames=("use_pallas",))
-def _demod_block_impl(state: FfDemodState, xr, xi, use_pallas: bool = False):
-    del use_pallas  # the feedforward chain has no sequential kernel to fuse
+@jax.jit
+def _demod_block_impl(state: FfDemodState, xr, xi):
     C, T = xr.shape
     assert T % (2 * SEG_SYM) == 0, "block must hold whole segments"
     rrc, _, _ = _tables()
 
     # ---- stage 1: block AGC + z^4 coarse CFO derotation + RRC ----
     # RMS amplitude: one sqrt per CHANNEL instead of one per sample (the
-    # roofline ledger's AGC fix: the per-sample sqrt was pure SFU load).
+    # per-sample sqrt was pure transcendental load).
     # For this constant-envelope-ish signal RMS ~ mean|x| to within a
     # fraction of a dB, and the downstream chain is scale-invariant.
     amp_mean = jnp.sqrt(jnp.maximum(jnp.mean(xr * xr + xi * xi, axis=1),
@@ -193,7 +190,7 @@ def _demod_block_impl(state: FfDemodState, xr, xi, use_pallas: bool = False):
     dzi = qi[:, 2:] * qr[:, :-2] - qr[:, 2:] * qi[:, :-2]
     # unnormalized 4th power: the coarse estimate only needs ~10 Hz
     # accuracy (the refinement tiers take it from there) and the
-    # per-sample normalizing division was pure SFU load
+    # per-sample normalizing division was pure transcendental load
     z2r = dzr * dzr - dzi * dzi
     z2i = 2.0 * dzr * dzi
     z4r = jnp.mean(z2r * z2r - z2i * z2i, axis=1)
@@ -237,9 +234,7 @@ def _demod_block_impl(state: FfDemodState, xr, xi, use_pallas: bool = False):
     g2 = gr * gr + gi * gi
     h2 = hr_ * hr_ + hi_ * hi_
     n_seg = T // (2 * SEG_SYM)
-    # per-segment alternating-sign sums as ONE static matmul (T, 2*n_seg):
-    # the (..., 2) strided splits this replaces are expensive relayouts on
-    # this backend
+    # per-segment alternating-sign sums as ONE static matmul (T, 2*n_seg)
     Mom = jnp.asarray(_om_matrix(T, n_seg))
     oms = jnp.dot(g2, Mom[:, :n_seg], preferred_element_type=jnp.float32)
     omh = jnp.dot(h2, Mom[:, n_seg:], preferred_element_type=jnp.float32)
@@ -270,9 +265,7 @@ def _demod_block_impl(state: FfDemodState, xr, xi, use_pallas: bool = False):
     # window index floor(p) + 2 >= 0 always, so validity is a pure
     # tail condition (prefix mask) and the pos carry below stays exact.
     #
-    # GATHER-FREE: advanced indexing runs at ~6 ns/element on this TPU
-    # backend (CLAUDE.md), so instead of gathering (C, n_sym, ntaps)
-    # windows, exploit floor(p_k) - 2k in {-2..3} (|p_0 - pos| < 1 plus
+    # GATHER-FREE: instead of gathering (C, n_sym, ntaps) windows, exploit floor(p_k) - 2k in {-2..3} (|p_0 - pos| < 1 plus
     # bounded in-block clock drift): six (shift s in {-1,0,1}) x (parity
     # b in {0,1}) window variants are plain shifted SLICES of the stream,
     # Horner-combined per symbol, then masked-selected by (s, b).
@@ -300,7 +293,7 @@ def _demod_block_impl(state: FfDemodState, xr, xi, use_pallas: bool = False):
     j_off = jnp.clip(j_off, jmin, jmax)
     # split even/odd ONCE (two strided slices total); every (offset, tap)
     # window is then a CONTIGUOUS shifted slice of one of the half-rate
-    # streams -- strided slices are expensive relayouts on this backend
+    # streams
     ser = epr[:, 0::2]
     sor = epr[:, 1::2]
     sei = epi[:, 0::2]
@@ -461,28 +454,19 @@ def _demod_block_impl(state: FfDemodState, xr, xi, use_pallas: bool = False):
     return new_state, outs
 
 
-USE_PALLAS = None
-
-
-def _resolve_pallas(flag) -> bool:
-    if flag is not None:
-        return bool(flag)
-    return jax.default_backend() not in ("cpu",)
-
-
 def demod_block(state: FfDemodState, iq: np.ndarray):
     """Feedforward demod of one (C, T) complex block; T must be a multiple
     of 2*SEG_SYM (and of demod_fast.K_SAMP for the shared stage 1)."""
     iq = np.atleast_2d(iq)
     xr = jnp.asarray(np.ascontiguousarray(iq.real, dtype=np.float32))
     xi = jnp.asarray(np.ascontiguousarray(iq.imag, dtype=np.float32))
-    return _demod_block_impl(state, xr, xi, _resolve_pallas(USE_PALLAS))
+    return _demod_block_impl(state, xr, xi)
 
 
-@partial(jax.jit, static_argnames=("use_pallas",))
-def _demod_scan_impl(state, xr_k, xi_k, use_pallas: bool):
+@jax.jit
+def _demod_scan_impl(state, xr_k, xi_k):
     def body(st, xs):
-        return _demod_block_impl(st, xs[0], xs[1], use_pallas)
+        return _demod_block_impl(st, xs[0], xs[1])
     return jax.lax.scan(body, state, (xr_k, xi_k))
 
 
@@ -491,4 +475,4 @@ def demod_blocks(state: FfDemodState, iq: np.ndarray):
     iq = np.asarray(iq)
     xr = jnp.asarray(np.ascontiguousarray(iq.real, dtype=np.float32))
     xi = jnp.asarray(np.ascontiguousarray(iq.imag, dtype=np.float32))
-    return _demod_scan_impl(state, xr, xi, _resolve_pallas(USE_PALLAS))
+    return _demod_scan_impl(state, xr, xi)

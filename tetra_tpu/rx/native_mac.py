@@ -16,9 +16,10 @@ import os
 import subprocess
 import threading
 
+from .. import native_build
+
 _DIR = os.path.join(os.path.dirname(__file__), "native")
 _SRC = os.path.join(_DIR, "macparse.cpp")
-_SO = os.path.join(_DIR, "libtetra_macparse.so")
 
 _lib = None
 _lock = threading.Lock()
@@ -85,8 +86,9 @@ class MacStateStruct(ctypes.Structure):
 
 
 def load():
-    """Build (if stale) and load the native library; None on failure or
-    when disabled via TETRA_NO_NATIVE_MAC."""
+    """Build (on first use) and load the native library; None when disabled
+    via TETRA_NO_NATIVE_MAC or when no compiler can build it (the Python
+    upper MAC is the full-featured equivalent)."""
     global _lib
     if os.environ.get("TETRA_NO_NATIVE_MAC"):
         return None
@@ -94,11 +96,8 @@ def load():
         if _lib is not None:
             return _lib if _lib is not False else None
         try:
-            if (not os.path.exists(_SO)
-                    or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-                subprocess.run(["g++", "-O2", "-std=c++17", "-shared",
-                                "-fPIC", "-o", _SO, _SRC], check=True)
-            lib = ctypes.CDLL(_SO)
+            lib = ctypes.CDLL(native_build.build(
+                "tetra_macparse", _SRC, flags=("-O2", "-std=c++17")))
             lib.macparse_create.restype = ctypes.c_void_p
             lib.macparse_destroy.argtypes = [ctypes.c_void_p]
             lib.macparse_state.restype = ctypes.c_void_p
@@ -117,7 +116,7 @@ def load():
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
             assert lib.macparse_state_size() == ctypes.sizeof(MacStateStruct)
             _lib = lib
-        except Exception:
+        except (OSError, subprocess.CalledProcessError):
             _lib = False
             return None
         return _lib

@@ -1,6 +1,6 @@
 """Batched soft-decision Viterbi decoder for the TETRA K=5 mother codes (JAX).
 
-TPU-first re-design of the reference's generic trellis decoder
+Batched re-design of the reference's generic trellis decoder
 (lower_mac/osmo_conv.c, viterbi_cch.c, viterbi_tch.c): instead of a scalar
 ACS loop per block, the 16-state trellis is laid out on the vector unit and
 the decoder is batched over an arbitrary leading block axis, with
@@ -62,8 +62,8 @@ _NEG = -1e9
 
 # lax.scan unroll factor for the ACS/traceback loops (read at trace time).
 # The mixed-FEC program's per-call latency is dominated by the 288
-# sequential trellis steps on the remote TPU backend; unrolling lets XLA
-# fuse/pipeline consecutive steps.  Override with TETRA_VIT_UNROLL.
+# sequential trellis steps; unrolling lets XLA fuse/pipeline consecutive
+# steps.  Override with TETRA_VIT_UNROLL.
 import os as _os
 
 SCAN_UNROLL = int(_os.environ.get("TETRA_VIT_UNROLL", "4"))
@@ -74,17 +74,14 @@ def _acs_tables(use_tch: bool):
     """Gather-free ACS operand tables.
 
     The reference-shaped formulation indexed bm[:, prev, b_of] and
-    metrics[:, prev] with fancy indices -- gather-class ops that this TPU
-    backend executes at ~6 ns/element, dominating the 288-step trellis
-    scan.  Because prev0[ns] = ns>>1 enumerates [0,0,1,1,..,7,7] (and
+    metrics[:, prev] with fancy indices -- a gather per trellis step.
+    Because prev0[ns] = ns>>1 enumerates [0,0,1,1,..,7,7] (and
     prev1 the same + 8), metrics[:, prev] is exactly a repeat() of each
     half (a free broadcast/reshape), and the branch-metric selection
     collapses into two precomputed (16, n) expected-sign tables
     E0[ns] = E[prev0[ns], b_of[ns]], E1[ns] = E[prev1[ns], b_of[ns]]:
-    cand_k = repeat(metrics_half_k) + y @ Ek^T.  All operands are exact in
-    bf16 (+-1 signs, soft values in {-1,0,+1} and the pad amplitude), so
-    the MXU dot is exact and results are bit-identical to the fancy-index
-    form."""
+    cand_k = repeat(metrics_half_k) + y @ Ek^T, bit-identical to the
+    fancy-index form (the dot runs at Precision.HIGHEST)."""
     E, prev0, prev1, b_of = (_TCH_TABLES if use_tch else _CCH_TABLES)
     E_n = np.asarray(E)
     p0, p1, bo = (np.asarray(prev0), np.asarray(prev1), np.asarray(b_of))
@@ -105,9 +102,11 @@ def _viterbi(soft: jnp.ndarray, n_out: int, use_tch: bool,
     def acs(metrics, y):
         # y: (B, n_out); cand_k[b, ns] = metrics[b, prev_k] + y @ Ek
         cand0 = jnp.repeat(metrics[:, :8], 2, axis=1) + jnp.dot(
-            y, E0t, preferred_element_type=jnp.float32)
+            y, E0t, precision=jax.lax.Precision.HIGHEST,
+            preferred_element_type=jnp.float32)
         cand1 = jnp.repeat(metrics[:, 8:], 2, axis=1) + jnp.dot(
-            y, E1t, preferred_element_type=jnp.float32)
+            y, E1t, precision=jax.lax.Precision.HIGHEST,
+            preferred_element_type=jnp.float32)
         take1 = cand1 > cand0
         new = jnp.where(take1, cand1, cand0)
         new = new - jnp.max(new, axis=1, keepdims=True)  # normalize
@@ -186,6 +185,7 @@ def _viterbi_generic(soft: jnp.ndarray, polys: tuple, term: str):
 
     def acs(metrics, y):
         bm = jnp.einsum("bn,sen->bse", y, E,
+                        precision=jax.lax.Precision.HIGHEST,
                         preferred_element_type=jnp.float32)
         cand0 = metrics[:, prev0] + bm[:, prev0, b_of]
         cand1 = metrics[:, prev1] + bm[:, prev1, b_of]

@@ -5,22 +5,22 @@ compute with the wrong shape for the TPU (SURVEY.md section 7 step 7) - so it
 lives in C++ (voice/native/acelp_codec.cpp) behind a ctypes C ABI, mirroring
 the reference's use of the native ETSI decoder (tetra_lower_mac.c:355-363).
 
-The shared library builds on first use with the system compiler and is cached
-next to the source.
+The shared library builds on first use with the system compiler
+(tetra_tpu/native_build.py).
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 
 import numpy as np
 
+from .. import native_build
+
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "native")
 _SRC = os.path.join(_NATIVE_DIR, "acelp_codec.cpp")
-_SO = os.path.join(_NATIVE_DIR, "libtetra_acelp.so")
 
 _lib = None
 _lock = threading.Lock()
@@ -59,12 +59,8 @@ def _load():
     with _lock:
         if _lib is not None:
             return _lib
-        if (not os.path.exists(_SO)
-                or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-            subprocess.run(
-                ["g++", "-O2", "-shared", "-fPIC", "-o", _SO, _SRC],
-                check=True)
-        lib = ctypes.CDLL(_SO)
+        lib = ctypes.CDLL(native_build.build("tetra_acelp", _SRC,
+                                             flags=("-O2",)))
         lib.tetra_acelp_create.restype = ctypes.c_void_p
         lib.tetra_acelp_destroy.argtypes = [ctypes.c_void_p]
         lib.tetra_acelp_decode_frame.argtypes = [
